@@ -3,7 +3,7 @@
 remote pipeline host.
 
 The multi-host ingest topology: dongles (or a replayed capture, or the
-synthetic model) sit on a capture host near the antennas; the TPU pipeline
+synthetic model) sit on a capture host near the antennas; the pipeline
 host runs ``coherent_server.py --source ring --ingest zmq:<this daemon>``
 whose native C++ SUB thread (native/coherent_host.cc zmq_producer_main)
 receives these blocks straight into the SPSC ring. This is the reference's

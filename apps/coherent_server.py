@@ -22,7 +22,10 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def main():
+def main(argv=None):
+    from coherent_rtlsdr_tpu._bootstrap import setup_compile_cache
+
+    setup_compile_cache()
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("-f", "--fcenter", type=float, default=1024e6)
     ap.add_argument("-b", "--blocksize", type=int, default=8192)
@@ -87,7 +90,11 @@ def main():
     ap.add_argument("--state", default=None, help="calibration checkpoint npz")
     ap.add_argument("--drop-rate", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--cpu", action="store_true", help="run the pipeline on host CPU")
+    ap.add_argument(
+        "--cpu", action="store_true",
+        help="run the pipeline on the host CPU (without it, a host where "
+             "JAX finds no accelerator is an error)",
+    )
     ap.add_argument(
         "--scan-depth", type=int, default=1,
         help="blocks per device dispatch (throughput mode; adds latency)",
@@ -97,10 +104,10 @@ def main():
         help="local stdin console next to the remote socket (console.cc:38-57)",
     )
     ap.add_argument(
-        "--fft-impl", choices=["xla", "mxu", "pallas", "fused", "auto"],
+        "--fft-impl", choices=["xla", "mxu", "fused", "auto"],
         default="xla",
-        help="spectral backend (kernels/backend.py); 'fused' = u8-native "
-             "Pallas mega-kernels with in-kernel dequant/phase/requant",
+        help="spectral backend (kernels/backend.py); 'fused' = the u8-native "
+             "engine: raw bytes in, int8 wire bytes out, one shared spectrum",
     )
     ap.add_argument(
         "--trace", default=None, metavar="DIR",
@@ -109,7 +116,7 @@ def main():
     )
     ap.add_argument(
         "--mesh", type=int, default=1, metavar="SHARDS",
-        help="shard the channel axis over this many devices (multi-chip "
+        help="shard the channel axis over this many devices (multi-device "
              "serving, docs/SCALING.md; channel count — or --max-channels — "
              "must divide evenly; with --cpu, virtual devices are created)",
     )
@@ -118,7 +125,7 @@ def main():
         help="pad the channel axis to this width so console add/del reuse "
              "the compiled executable (no mid-stream recompile stall)",
     )
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     if args.cpu and args.mesh > 1:
         from coherent_rtlsdr_tpu._bootstrap import force_virtual_devices
@@ -128,6 +135,9 @@ def main():
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    from coherent_rtlsdr_tpu._bootstrap import report_backend
+
+    report_backend(allow_cpu=args.cpu)
 
     from coherent_rtlsdr_tpu.io.config import read_config, signal_channels
     from coherent_rtlsdr_tpu.io.server import CoherentServer

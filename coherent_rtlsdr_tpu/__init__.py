@@ -1,6 +1,6 @@
-"""coherent_rtlsdr_tpu — a TPU-native phase-coherent multichannel SDR framework.
+"""coherent_rtlsdr_tpu — a phase-coherent multichannel SDR framework in JAX.
 
-A brand-new JAX/XLA/Pallas implementation of the capabilities of the reference
+A JAX/XLA implementation of the capabilities of the reference
 C++ system ``mlaaks/coherent-rtlsdr`` (surveyed in SURVEY.md): coherent
 alignment of N software-defined-radio channels against a shared reference-noise
 channel — batched-FFT cross-correlation lag estimation, fractional-delay and
@@ -21,7 +21,7 @@ Design stance (not a port):
 Subpackages
 -----------
 ops        pure DSP ops (convert / xcorr / delay / phase / spectral)
-kernels    Pallas TPU kernels for the hot ops (with jnp fallbacks)
+kernels    spectral backends (XLA FFT, four-step matmul FFT, u8-native fused)
 pipeline   block pipeline: state, step, control law, offline/streaming drivers
 parallel   mesh construction, shard_map wrappers, halo exchange
 signal     synthetic multichannel signal model (the hardware-free backend)

@@ -147,12 +147,11 @@ class CoherentServer:
         self.dispatcher = ConsoleDispatcher(self)
 
         self.scan_depth = int(scan_depth)
-        # multi-chip serving: a jax.sharding.Mesh with a `channel` axis
+        # multi-device serving: a jax.sharding.Mesh with a `channel` axis
         # shards the per-channel DSP across devices (docs/SCALING.md);
         # everything else in the loop is unchanged
         self.mesh = mesh
-        # fused impl: ship bytes FLAT ([N, 2L]) — a [N, L, 2] byte array is
-        # 64x tile-bloated on device (see pipeline/step.py layout rule)
+        # fused impl: ship bytes FLAT ([N, 2L]), its wire layout
         self._flat = cfg.fft_impl == "fused"
         self._build_jits(cfg)
         self.state = init_state(cfg)
@@ -161,8 +160,7 @@ class CoherentServer:
 
     # ---- pipeline state storage -----------------------------------------
     # The unsharded hot loop carries the PACKED state triple (three tensors
-    # instead of 11 leaves — per-dispatch issue cost scales with leaf
-    # count, docs/PERF.md round 4; pipeline/state.pack_state). `state` is
+    # instead of 11 leaves; pipeline/state.pack_state). `state` is
     # the PipelineState VIEW for the rare host touchpoints (status,
     # checkpoint, hot-plug, tests); reading it fetches the packed tensors,
     # assigning it repacks. The sharded (mesh) path carries the plain
@@ -220,11 +218,9 @@ class CoherentServer:
 
     def _build_jits(self, cfg: PipelineConfig) -> None:
         # Both jit families emit int8 wire blocks + telemetry packed into
-        # ONE [.., N, 10] tensor (round-4 probe: per-dispatch cost scales
-        # with leaf count; the worker fetches one array per batch). The
-        # unsharded path additionally packs the carried STATE to three
-        # tensors (pipeline/state.pack_state — the 11-leaf state was the
-        # remaining per-call cost, docs/PERF.md round 4 #6).
+        # ONE [.., N, 10] tensor (the worker fetches one array per batch).
+        # The unsharded path additionally packs the carried STATE to three
+        # tensors (pipeline/state.pack_state).
         self.cfg = cfg
         self.n_jit_builds += 1
         if self.mesh is not None:

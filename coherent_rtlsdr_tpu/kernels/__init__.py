@@ -1,12 +1,10 @@
-"""TPU kernels for the hot ops.
+"""Spectral backends and the four-step matmul FFT.
 
-The profile (see bench.py + SURVEY.md §7 step 4) shows the pipeline is
-FFT-dominated and XLA's TPU FFT runs at a few hundred GFLOP/s — far from
-the MXU. ``fft4step`` reformulates the 2L-point FFT as two batched 128x128
-complex matmuls plus a twiddle (the classic four-step/Bailey factorization),
-which the MXU executes at TFLOP rates; the companion ops consume its
-permuted-frequency layout directly so no transpose or reordering pass ever
-touches HBM.
+``backend`` selects the pipeline's spectral engine (XLA FFT, four-step
+matmul FFT, or the u8-native fused engine); ``fft4step`` reformulates the
+2L-point FFT as two batched complex matmuls plus a twiddle (the classic
+four-step/Bailey factorization), and ``permuted`` holds the companion ops
+that consume its permuted-frequency layout directly.
 """
 
 from coherent_rtlsdr_tpu.kernels.fft4step import (

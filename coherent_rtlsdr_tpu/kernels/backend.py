@@ -1,7 +1,6 @@
 """Spectral backend selection: one interface over the XLA-FFT natural-order
-path, the MXU four-step permuted path, and the fully-fused Pallas
-mega-kernel path, so the pipeline code is written once (pipeline/step.py,
-pipeline/offline.py).
+path, the four-step matmul permuted path, and the u8-native fused engine,
+so the pipeline code is written once (pipeline/step.py, pipeline/offline.py).
 
 All backends implement the 3-op pipeline interface over STREAM BLOCKS
 (the overlap-save window of output slot t is blocks (t, t+1)):
@@ -11,11 +10,10 @@ All backends implement the 3-op pipeline interface over STREAM BLOCKS
     y   = sp.correct(ctx, advance)            # aligned center half [T-1, N, L]
 
 plus the lower-level fft/ifft/lag_estimate/apply_advance ops (used by
-analysis code and the non-fused backends themselves). xla/mxu assemble
-2L windows and take spectra; the fused backend stores the blocks once as
-bf16 planes and assembles windows inside its mega-kernels
-(kernels/pallas_fused.py). ``correct`` returns the overlap-save center
-half ``y[..., W/4:3W/4]`` per window.
+analysis code and the backends themselves). ``correct`` returns the
+overlap-save center half ``y[..., W/4:3W/4]`` per window. The fused
+backend adds the raw-byte pair ``measure_i8`` / ``apply_i8`` that the
+'fused' step and offline engine run on.
 """
 
 from typing import NamedTuple
@@ -25,8 +23,15 @@ import jax.numpy as jnp
 
 from coherent_rtlsdr_tpu.kernels.fft4step import FFT4Step, supported_fft_len
 from coherent_rtlsdr_tpu.kernels import permuted as perm
+from coherent_rtlsdr_tpu.ops.convert import c64_to_i8_iq, i8_iq_to_c64
 from coherent_rtlsdr_tpu.ops.delay import apply_delay_phase_freq
-from coherent_rtlsdr_tpu.ops.xcorr import LagEstimate, lag_estimate_from_spectra
+from coherent_rtlsdr_tpu.ops.xcorr import (
+    LagEstimate,
+    lag_estimate_from_spectra,
+    phase_zoom,
+)
+
+FFT_IMPLS = ("xla", "mxu", "fused", "auto")
 
 
 def _vmap_leading(fn, ndim_core, *args):
@@ -81,16 +86,10 @@ class XlaSpectral:
 
 
 class MxuSpectral:
-    """Permuted-layout spectra via the four-step MXU FFT (einsum or fused
-    Pallas kernel)."""
+    """Permuted-layout spectra via the four-step matmul FFT."""
 
-    def __init__(self, fft_len: int, precision: str = "bf16", pallas: bool = False):
-        if pallas:
-            from coherent_rtlsdr_tpu.kernels.pallas_fft import FFT4StepPallas
-
-            self._fft = FFT4StepPallas(fft_len)
-        else:
-            self._fft = FFT4Step(fft_len, precision=precision)
+    def __init__(self, fft_len: int, precision: str = "bf16"):
+        self._fft = FFT4Step(fft_len, precision=precision)
         self.fft_len = fft_len
 
     def fft(self, x):
@@ -127,92 +126,91 @@ class MxuSpectral:
         return y[..., W // 4: W // 4 + W // 2]
 
 
-class _FusedCtx(NamedTuple):
-    pre: jnp.ndarray   # [T, N, m/2, m] bf16 block planes
-    pim: jnp.ndarray
-    rre: jnp.ndarray   # [T-1, m, m] bf16 permuted ref window spectra
-    rim: jnp.ndarray
+class I8Measure(NamedTuple):
+    """``FusedSpectral.measure_i8`` result, each ``[T-1, N]`` except spec."""
+
+    lag: jnp.ndarray    # fractional lag (phase_zoom)
+    z: jnp.ndarray      # c64 correlation value at that lag (Parseval)
+    mag: jnp.ndarray    # |z| / sqrt(E_sig * E_ref)
+    papr: jnp.ndarray   # |z|^2 / sum|G|^2
+    spec: jnp.ndarray   # [T-1, N, W] c64 window spectra, reused by apply_i8
 
 
-class FusedSpectral:
-    """Single-kernel measure/apply (kernels/pallas_fused.py): spectra never
-    leave VMEM. Lag estimation is the phase-zoom algorithm (IFFT-free),
-    computed inside the measure kernel."""
+def _i8_windows(raw: jnp.ndarray) -> jnp.ndarray:
+    """Signed int8 IQ blocks ``[T, ..., L, 2]`` (or flat ``[T, ..., 2L]``)
+    -> overlap-save windows ``[T-1, ..., 2L]`` complex64 (window t = blocks
+    (t, t+1)); the dequant fuses into the window assembly."""
+    x = i8_iq_to_c64(raw.reshape(*raw.shape[:-1], -1, 2)
+                     if raw.shape[-1] != 2 else raw)
+    return jnp.concatenate([x[:-1], x[1:]], axis=-1)
 
-    def __init__(self, fft_len: int):
-        from coherent_rtlsdr_tpu.kernels.pallas_fused import FusedPipelineKernels
-        from coherent_rtlsdr_tpu.kernels.pallas_fft import FFT4StepPallas
 
-        self._k = FusedPipelineKernels(fft_len)
-        self._reffft = FFT4StepPallas(fft_len)
-        self.fft_len = fft_len
+class FusedSpectral(XlaSpectral):
+    """The u8-native engine (fft_impl='fused'): signed int8 capture bytes
+    in, int8 wire bytes out, with ONE window spectrum per channel shared by
+    measurement and correction.
 
-    # low-level ops delegate to the pallas four-step (analysis callers)
-    def fft(self, x):
-        return self._reffft.fft(x)
+    ``measure_i8`` dequantizes, transforms the signal and reference windows
+    and runs the IFFT-free phase_zoom estimator (ops/xcorr.py); it also
+    returns the complex correlation value z, whose argument is the
+    channel's phase-correction estimate, and the window spectra.
+    ``apply_i8`` ramps those spectra by the applied advance and phase,
+    inverse-transforms, keeps the overlap-save center half and requantizes
+    to the int8 wire format (cpacketizer.cc:158-172 analog).
 
-    def ifft(self, S):
-        return self._reffft.ifft(S)
-
-    # -- pipeline interface --------------------------------------------
-    def prepare(self, sig_blocks, ref_blocks):
-        # Blocks are stored ONCE as bf16 planes (the kernels cast to bf16
-        # for the MXU anyway): no 2L-window materialization, no complex64
-        # intermediates, half the input DMA at the ~100 GB/s Pallas DMA
-        # floor. The u8->c64->planes chain fuses into one XLA pass.
-        m = self._k.m
-        T, N, L = sig_blocks.shape
-        ps = sig_blocks.reshape(T, N, m // 2, m)
-        w_ref = jnp.concatenate([ref_blocks[:-1], ref_blocks[1:]], axis=-1)
-        R = self._reffft.fft(w_ref)
-        return _FusedCtx(
-            pre=jnp.real(ps).astype(jnp.bfloat16),
-            pim=jnp.imag(ps).astype(jnp.bfloat16),
-            rre=jnp.real(R).astype(jnp.bfloat16),
-            rim=jnp.imag(R).astype(jnp.bfloat16),
-        )
+    The generic ``prepare/measure/correct`` interface is the XLA backend's
+    with the lag estimator fixed to phase_zoom.
+    """
 
     def measure(self, ctx, method):
         if method not in ("phase_zoom", "auto"):
             raise ValueError(
-                "fft_impl='fused' computes lag in-kernel with the phase_zoom "
+                "fft_impl='fused' measures lag with the phase_zoom "
                 f"estimator; set lag_method='phase_zoom' (got '{method}')"
             )
-        lag, zabs, esig, eg = self._k.measure(ctx.pre, ctx.pim, ctx.rre, ctx.rim)
-        rre = ctx.rre.astype(jnp.float32)
-        rim = ctx.rim.astype(jnp.float32)
-        e_ref = jnp.sum(rre * rre + rim * rim, axis=(-2, -1))  # [T-1]
-        denom = jnp.sqrt(esig * e_ref[:, None])
-        mag = zabs / jnp.where(denom > 0, denom, 1.0)
-        # Parseval PAPR: peak|c| ~ |z|/W, mean|c|^2 = sum|G|^2/W^2.
-        papr = zabs * zabs / jnp.where(eg > 0, eg, 1.0)
-        return LagEstimate(lag=lag, mag=mag, papr=papr)
+        return super().measure(ctx, "phase_zoom")
 
-    def correct(self, ctx, advance):
-        T1, N = ctx.pre.shape[0] - 1, ctx.pre.shape[1]
-        adv = jnp.asarray(advance, jnp.float32).reshape((T1, N))
-        yre, yim = self._k.apply(ctx.pre, ctx.pim, adv)
-        return (yre + 1j * yim).astype(jnp.complex64)
+    def measure_i8(self, raw: jnp.ndarray, ref_raw: jnp.ndarray) -> I8Measure:
+        """raw ``[T, N, L, 2]`` int8 blocks; ref_raw ``[T, L, 2]`` int8
+        (flat ``[.., 2L]`` accepted). Returns T-1 windows."""
+        D = self.fft(_i8_windows(raw))         # [T-1, N, W]
+        R = self.fft(_i8_windows(ref_raw))     # [T-1, W]
+        lag, z, e_g = phase_zoom(D * jnp.conj(R)[:, None, :])
+        e_sig = jnp.sum(jnp.real(D) ** 2 + jnp.imag(D) ** 2, axis=-1)
+        e_ref = jnp.sum(jnp.real(R) ** 2 + jnp.imag(R) ** 2, axis=-1)
+        zabs = jnp.abs(z)
+        denom = jnp.sqrt(e_sig * e_ref[:, None])
+        mag = zabs / jnp.where(denom > 0, denom, 1.0)
+        papr = zabs * zabs / jnp.where(e_g > 0, e_g, 1.0)
+        return I8Measure(lag=lag, z=z, mag=mag, papr=papr, spec=D)
+
+    def apply_i8(self, spec: jnp.ndarray, advance: jnp.ndarray,
+                 phase: jnp.ndarray) -> jnp.ndarray:
+        """spec ``[T-1, N, W]`` from measure_i8; advance ``[T-1, N]`` f32;
+        phase ``[T-1, N]`` unit complex. Returns the corrected overlap-save
+        center half as FLAT interleaved int8 wire bytes ``[T-1, N, W]``
+        (W = 2L bytes = L IQ samples)."""
+        W = self.fft_len
+        y = self.ifft(apply_delay_phase_freq(spec, advance, phase))
+        wire = c64_to_i8_iq(y[..., W // 4: W // 4 + W // 2])
+        return wire.reshape(*wire.shape[:-2], W)
 
 
 def get_spectral(cfg, fft_len: int):
     """Pick the backend from PipelineConfig.fft_impl ('xla' | 'mxu' |
-    'pallas' | 'fused' | 'auto'). 'auto' uses MXU when the length is a
-    supported square."""
+    'fused' | 'auto'). 'auto' is the XLA backend (cuFFT on the GPU)."""
     impl = getattr(cfg, "fft_impl", "xla")
-    if impl in ("mxu", "pallas", "fused") or (
-        impl == "auto" and supported_fft_len(fft_len)
-    ):
-        if not supported_fft_len(fft_len):
-            raise ValueError(
-                f"fft_impl='{impl}' needs a square fft_len in "
-                f"{{4096, 16384, 65536}}, got {fft_len}"
-            )
-        if impl == "fused":
-            return FusedSpectral(fft_len)
-        return MxuSpectral(
-            fft_len,
-            precision=getattr(cfg, "mxu_precision", "bf16"),
-            pallas=(impl == "pallas"),
+    if impl not in FFT_IMPLS:
+        raise ValueError(
+            f"unknown fft_impl '{impl}'; expected one of {FFT_IMPLS}"
         )
-    return XlaSpectral(fft_len)
+    if impl in ("xla", "auto"):
+        return XlaSpectral(fft_len)
+    if not supported_fft_len(fft_len):
+        raise ValueError(
+            f"fft_impl='{impl}' needs a square fft_len in "
+            f"{{4096, 16384, 65536}}, got {fft_len}"
+        )
+    if impl == "fused":
+        return FusedSpectral(fft_len)
+    return MxuSpectral(fft_len, precision=getattr(cfg, "mxu_precision", "bf16"))

@@ -1,4 +1,4 @@
-"""Four-step (Bailey) FFT as MXU matmuls, with a transpose-free permuted
+"""Four-step (Bailey) FFT as matmuls, with a transpose-free permuted
 frequency layout.
 
 For W = m*m (m = 64/128/256), the W-point DFT factors as
@@ -17,13 +17,13 @@ permuted layout straight back to natural time order:
 
     C = D @ conj(F_m)/m;  B = C * conj(T);  A = conj(F_m)/m @ B;  x = A.flat
 
-Why: a 16K-point XLA FFT on this TPU measures ~245 GFLOP/s (VPU-bound
-butterflies); as two 128^3 complex matmuls the MXU does the (28x larger)
-FLOP count an order of magnitude faster, and skipping both transposes saves
-two full HBM round-trips per transform. In bf16 (f32 accumulation) the
-roundoff is ~3e-3 relative — below the int8 wire quantization step (1/127)
-and vanishing in the phase-slope estimator's 16K-bin averaging; 'f32'
-precision (XLA's 3-pass bf16x3 matmul) is available for exactness.
+The transform runs as matrix products (the 'mxu' backend), which trade a
+~28x larger FLOP count for matrix-unit throughput, and skipping both
+transposes saves two full memory round-trips per transform. In bf16 (f32
+accumulation) the roundoff is ~3e-3 relative — below the int8 wire
+quantization step (1/127) and vanishing in the phase-slope estimator's
+16K-bin averaging. 'f32' runs the products at full f32 precision
+(``lax.Precision.HIGHEST``, never a reduced-precision TF32 or bf16 pass).
 """
 
 from functools import partial
@@ -63,16 +63,25 @@ class FFT4Step:
             raise ValueError(f"fft_len {fft_len} is not a square")
         self.fft_len = fft_len
         self.m = m
+        if precision not in ("bf16", "f32"):
+            raise ValueError(f"precision must be 'bf16' or 'f32', got {precision!r}")
         self.precision = precision
         fre, fim = _dft_matrix(m)
         tre, tim = _twiddle(m)
         self._F = (jnp.asarray(fre), jnp.asarray(fim))
         self._T = jnp.asarray(tre) + 1j * jnp.asarray(tim)
 
-    # -- complex matmuls as 4 real MXU matmuls ---------------------------
+    # -- complex matmuls as 4 real matmuls -------------------------------
 
     def _mm_dtype(self):
         return jnp.bfloat16 if self.precision == "bf16" else jnp.float32
+
+    def _mm_precision(self):
+        # bf16 operands take the default (bf16 with f32 accumulation); f32
+        # operands must not drop to TF32 or bf16 passes.
+        if self.precision == "bf16":
+            return jax.lax.Precision.DEFAULT
+        return jax.lax.Precision.HIGHEST
 
     def _left(self, Fre, Fim, a: jnp.ndarray) -> jnp.ndarray:
         """(Fre + i Fim) @ a over the second-to-last axis of a."""
@@ -81,7 +90,8 @@ class FFT4Step:
         aim = jnp.imag(a).astype(d)
         fre = Fre.astype(d)
         fim = Fim.astype(d)
-        mm = partial(jnp.einsum, "kn,...nm->...km", preferred_element_type=jnp.float32)
+        mm = partial(jnp.einsum, "kn,...nm->...km", precision=self._mm_precision(),
+                     preferred_element_type=jnp.float32)
         bre = mm(fre, are) - mm(fim, aim)
         bim = mm(fre, aim) + mm(fim, are)
         return (bre + 1j * bim).astype(jnp.complex64)
@@ -93,7 +103,8 @@ class FFT4Step:
         aim = jnp.imag(a).astype(d)
         fre = Fre.astype(d)
         fim = Fim.astype(d)
-        mm = partial(jnp.einsum, "...kn,nj->...kj", preferred_element_type=jnp.float32)
+        mm = partial(jnp.einsum, "...kn,nj->...kj", precision=self._mm_precision(),
+                     preferred_element_type=jnp.float32)
         bre = mm(are, fre) - mm(aim, fim)
         bim = mm(are, fim) + mm(aim, fre)
         return (bre + 1j * bim).astype(jnp.complex64)

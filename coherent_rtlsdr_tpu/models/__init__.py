@@ -2,7 +2,7 @@
 matrix feeds (reference: beamformclient/heatmap2d*.cpp MUSIC clients and
 matlabclient/functions/pmusic.m + co-array processing).
 
-All MXU-friendly JAX: covariance, eigendecompositions, and steering-matrix
+All plain JAX: covariance, eigendecompositions, and steering-matrix
 products are batched matmuls.
 """
 

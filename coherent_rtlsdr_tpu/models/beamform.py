@@ -7,12 +7,21 @@ Covers (and extends) the reference's downstream consumers:
   * MVDR/Capon — not in the reference; standard addition
 
 Shapes: X [N, T] snapshots, R [N, N] covariance, A [G, N] steering matrix.
-All dense linear algebra — batched matmuls (MXU) + one eigh.
+All dense linear algebra — batched matmuls + one eigh. The complex64
+matmuls run at full f32 precision (``HIGHEST``): a reduced-precision pass
+(TF32 or bf16) would perturb the noise subspace MUSIC projects onto.
 """
 
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
+
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 def sample_covariance(X: jnp.ndarray, subtract_mean: bool = True) -> jnp.ndarray:
@@ -21,7 +30,7 @@ def sample_covariance(X: jnp.ndarray, subtract_mean: bool = True) -> jnp.ndarray
     if subtract_mean:
         X = X - jnp.mean(X, axis=-1, keepdims=True)
     T = X.shape[-1]
-    return (X @ jnp.conj(X).T) / T
+    return _mm(X, jnp.conj(X).T) / T
 
 
 def _noise_subspace(R: jnp.ndarray, n_sources: int) -> jnp.ndarray:
@@ -29,7 +38,7 @@ def _noise_subspace(R: jnp.ndarray, n_sources: int) -> jnp.ndarray:
 
     eigh returns ascending eigenvalues, so the noise subspace is the leading
     columns (heatmap2d.cpp uses an SVD; eigh of the Hermitian covariance is
-    the TPU-friendly equivalent).
+    the cheaper equivalent).
     """
     _, vecs = jnp.linalg.eigh(R)
     n = R.shape[-1]
@@ -41,7 +50,7 @@ def music_spectrum(
 ) -> jnp.ndarray:
     """MUSIC pseudospectrum P[g] = (a^H a) / ||E_n^H a||^2."""
     En = _noise_subspace(R, n_sources)          # [N, M]
-    proj = A @ jnp.conj(En)                     # [G, M]
+    proj = _mm(A, jnp.conj(En))                 # [G, M]
     denom = jnp.sum(jnp.abs(proj) ** 2, axis=-1)
     num = jnp.sum(jnp.abs(A) ** 2, axis=-1)
     return num / jnp.maximum(denom, 1e-12)
@@ -50,7 +59,7 @@ def music_spectrum(
 def bartlett_spectrum(R: jnp.ndarray, A: jnp.ndarray) -> jnp.ndarray:
     """Delay-and-sum power: P[g] = a^H R a, normalized by ||a||^2."""
     # a^H R a as a row-wise quadratic form: (A @ R.T)[g, n] = (R a_g)[n].
-    q = jnp.sum(jnp.conj(A) * (A @ R.T), axis=-1)
+    q = jnp.sum(jnp.conj(A) * _mm(A, R.T), axis=-1)
     norm = jnp.sum(jnp.abs(A) ** 2, axis=-1)
     return jnp.real(q) / jnp.maximum(norm, 1e-12)
 
@@ -76,7 +85,7 @@ def esprit_doa(R, n_sources: int, d: float = 0.5):
     ``d`` is the element spacing in wavelengths; steering convention
     a(theta)_n = exp(+j 2 pi d n sin(theta)) (models/geometry.py).
     Returns sorted DOAs in radians. Host-side numpy: the final [K, K]
-    non-Hermitian eigenvalue problem has no TPU lowering, and like the
+    non-Hermitian eigenvalue problem runs host-side, and like the
     reference's MATLAB functions this runs client-side on snapshots.
     """
     import numpy as np
@@ -96,7 +105,7 @@ def root_music_doa(R, n_sources: int, d: float = 0.5):
     MUSIC spectrum: the noise-subspace projector's diagonal-sum polynomial
     is rooted and the K roots nearest (inside) the unit circle give the
     DOAs. Same conventions/returns as :func:`esprit_doa`; host-side numpy
-    (np.roots has no TPU lowering)."""
+    (np.roots runs host-side)."""
     import numpy as np
 
     R = np.asarray(R)
@@ -105,7 +114,7 @@ def root_music_doa(R, n_sources: int, d: float = 0.5):
         raise ValueError(f"n_sources must be in (0, N={N})")
     _, vecs = np.linalg.eigh(R)
     En = vecs[:, : N - n_sources]
-    C = En @ En.conj().T
+    C = _mm(En, En.conj().T)
     coeffs = np.array([np.trace(C, offset=k) for k in range(N - 1, -N, -1)])
     roots = np.roots(coeffs)
     roots = roots[np.abs(roots) < 1.0]

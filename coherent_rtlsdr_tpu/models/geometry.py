@@ -44,7 +44,8 @@ def steering_vectors(positions: jnp.ndarray, uv: jnp.ndarray) -> jnp.ndarray:
     Returns [G, N] complex64: a_g[n] = exp(+2*pi*i * p_n . uv_g)
     (heatmap2d.cpp:106-147 steering-vector scan).
     """
-    phase = 2.0 * jnp.pi * (uv @ jnp.asarray(positions).T)  # [G, N]
+    phase = 2.0 * jnp.pi * jnp.matmul(
+        uv, jnp.asarray(positions).T, precision="highest")  # [G, N]
     return jnp.exp(1j * phase).astype(jnp.complex64)
 
 

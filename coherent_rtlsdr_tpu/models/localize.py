@@ -11,11 +11,12 @@ emitter, the wavefront curvature encodes range as well as bearing. Here:
     maximizes the beamformed energy a^H R a / ||a||^2 (equivalently the
     matched-field processor), refined by a local quadratic fit.
 
-Everything is batched matmuls over the candidate grid (MXU-friendly).
+Everything is batched matmuls over the candidate grid.
 """
 
 from typing import Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -61,7 +62,8 @@ def ml_localize(
     """
     A = nearfield_steering_vectors(positions, grid)  # [G, N]
     R = sample_covariance(X)
-    q = jnp.real(jnp.sum(jnp.conj(A) * (A @ R.T), axis=-1))
+    q = jnp.real(jnp.sum(jnp.conj(A) * jnp.matmul(
+        A, R.T, precision=jax.lax.Precision.HIGHEST), axis=-1))
     norm = jnp.sum(jnp.abs(A) ** 2, axis=-1)
     spec = q / jnp.maximum(norm, 1e-12)
     idx = jnp.argmax(spec)

@@ -1,6 +1,5 @@
-"""Pure-JAX DSP ops. Every op here has a Pallas-accelerated twin in
-``coherent_rtlsdr_tpu.kernels``; these jnp versions are the always-correct
-fallbacks and the definition of numerical behavior."""
+"""Pure-JAX DSP ops: the definition of numerical behavior that every
+spectral backend in ``coherent_rtlsdr_tpu.kernels`` is tested against."""
 
 from coherent_rtlsdr_tpu.ops.convert import (
     u8_to_c64,

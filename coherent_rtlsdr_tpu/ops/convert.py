@@ -1,7 +1,7 @@
 """int8/uint8 IQ <-> complex-float conversion.
 
 Capability parity with the reference's cdsp conversion kernels (VOLK SIMD in
-the reference; XLA-fused elementwise here, Pallas twin in kernels/convert.py):
+the reference; XLA-fused elementwise here):
 
   * ``u8_to_i8``      — cdsp::convtosigned  (src/cdsp.cc:21-34): XOR 0x80,
                         i.e. remove the RTL2832's 128 DC offset.
@@ -22,10 +22,8 @@ from coherent_rtlsdr_tpu.constants import IQ_SCALE
 def c2f(x: jnp.ndarray) -> jnp.ndarray:
     """complex ``[...]`` -> float32 ``[..., 2]`` (re, im).
 
-    Complex arrays must not cross XLA program boundaries on this TPU backend
-    (complex buffers/transfers are unimplemented; complex math *inside* a
-    program is decomposed by XLA and works fine). All state and outputs
-    therefore travel as float pairs; ``f2c``/``c2f`` at program edges are
+    The pipeline state and the packed outputs carry complex quantities as
+    float pairs (dense real tensors); ``f2c``/``c2f`` at program edges are
     free (XLA fuses them).
     """
     return jnp.stack([jnp.real(x), jnp.imag(x)], axis=-1).astype(jnp.float32)

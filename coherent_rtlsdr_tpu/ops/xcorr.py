@@ -120,7 +120,7 @@ def _phase_slope_offset(
     return jnp.clip(-jnp.angle(s) * M / (2.0 * jnp.pi), -0.5, 0.5)
 
 
-def _phase_zoom_estimate(G: jnp.ndarray) -> LagEstimate:
+def phase_zoom(G: jnp.ndarray):
     """IFFT-free lag estimation: two banded phase-slope stages.
 
     Stage 1 (coarse): M1 = W/8 bands -> per-band increment 2*pi*d/M1,
@@ -128,16 +128,15 @@ def _phase_zoom_estimate(G: jnp.ndarray) -> LagEstimate:
     Stage 2 (fine): compensate the rounded coarse lag, M2 = 64 bands ->
     ~1e-3-sample accuracy as in the argmax path.
 
-    Skipping ifft+|.|^2+argmax removes three full-spectrum HBM passes from
-    the measurement — the pipeline is bandwidth-bound (measured: MXU-matmul
-    FFTs and XLA FFTs run at the same wall clock). The cost: unambiguous
-    range shrinks from W/2 to W/16 (still 1024 samples at W=16384). PAPR
-    comes free via Parseval without the IFFT — peak |c| ~ |z|/W and
-    mean|c|^2 = sum|G|^2/W^2, so papr = |z|^2/sum|G|^2 — the same formula
-    as the fused Pallas kernel (kernels/pallas_fused.py), so telemetry PAPR
-    is consistent across backends. mag is the exact correlation coefficient
-    *at the fractional lag* (Sum(Gc)/W normalized) rather than the
-    sinc-corrected integer-peak value.
+    Skipping ifft+|.|^2+argmax removes three full-spectrum passes from the
+    measurement. The cost: unambiguous range shrinks from W/2 to W/16
+    (still 1024 samples at W=16384).
+
+    Returns ``(lag, z, e2)``: the fractional lag, the complex correlation
+    value at that lag (``sum(G * ramp)``; by Parseval the time-domain inner
+    product at the lag is z/W, so arg(z) is the residual phase) and
+    ``sum|G|^2``. PAPR follows without the IFFT: peak |c| ~ |z|/W and
+    mean|c|^2 = sum|G|^2/W^2, so papr = |z|^2/sum|G|^2.
     """
     W = G.shape[-1]
     M1 = max(64, W // 8)
@@ -158,19 +157,25 @@ def _phase_zoom_estimate(G: jnp.ndarray) -> LagEstimate:
     frac = jnp.clip(band_slope(Gc, 64), -4.0, 4.0)
 
     # Full-compensation coherent sum = correlation value at the estimated
-    # (fractional) lag; normalize by the window energies (Parseval).
+    # (fractional) lag.
     frac_ramp = jnp.exp(
         (2j * jnp.pi)
         * jnp.fft.fftfreq(W).astype(jnp.float32)
         * frac[..., None]
     ).astype(G.dtype)
     z = jnp.sum(Gc * frac_ramp, axis=-1)
-    e2 = jnp.sum(jnp.abs(G) ** 2, axis=-1)  # = sum |F_sig|^2 |F_ref|^2
-    # |z| <= sqrt(W * sum|G|^2) by Cauchy-Schwarz; for flat spectra
-    # sum|G|^2/W ~ E_sig*E_ref/W^2 * W ... use the direct energies instead:
-    mag = jnp.abs(z)  # caller normalizes; see lag_estimate_from_spectra
+    e2 = jnp.sum(jnp.real(G) ** 2 + jnp.imag(G) ** 2, axis=-1)
+    return int_lag + frac, z, e2
+
+
+def _phase_zoom_estimate(G: jnp.ndarray) -> LagEstimate:
+    """:func:`phase_zoom` as a LagEstimate; ``mag`` is the UNNORMALIZED
+    |z| (the caller divides by the window energies, see
+    lag_estimate_from_spectra)."""
+    lag, z, e2 = phase_zoom(G)
+    mag = jnp.abs(z)
     papr = mag * mag / jnp.where(e2 > 0, e2, 1.0)
-    return LagEstimate(lag=int_lag + frac, mag=mag, papr=papr)
+    return LagEstimate(lag=lag, mag=mag, papr=papr)
 
 
 def lag_estimate_from_spectra(

@@ -1,16 +1,16 @@
 """Multi-host initialization and mesh construction.
 
-Single-host multi-chip uses ``make_mesh`` directly. For pod slices spanning
+Single-host multi-device uses ``make_mesh`` directly. For meshes spanning
 hosts, call ``init_multihost()`` once per process before any jax use; each
 host then feeds its local channels/blocks (host-local ZMQ/USB ingest) while
-the mesh spans the full slice — the DCN carries only jax.distributed
-control traffic, sample data enters per-host, and ICI carries the halo and
-smoother collectives (SURVEY.md §2.4 mapping).
+the mesh spans every host's devices — the host network carries only
+jax.distributed control traffic, sample data enters per-host, and the
+device collectives carry the halo and smoother reductions (SURVEY.md §2.4
+mapping).
 
-This tree is developed against a single-chip environment; the multi-host
-path follows the standard jax.distributed recipe and the sharded runners
-are validated on virtual device meshes (tests/test_parallel.py) and by the
-driver's multichip dry-run.
+The sharded runners are validated on virtual device meshes
+(tests/test_parallel.py, tests/test_distributed.py); the multi-host path
+follows the standard jax.distributed recipe.
 """
 
 import os

@@ -38,7 +38,7 @@ class OfflineResult(NamedTuple):
     papr: jnp.ndarray      # [T-1, N]
     phase: jnp.ndarray     # [T-1, N] c64 applied phase factors
     # fft_impl='fused' i8-native extras: the int8 wire frames straight from
-    # the apply kernel (aligned/ref are then wire-fidelity reconstructions).
+    # apply_i8 (aligned/ref are then wire-fidelity reconstructions).
     wire: Optional[jnp.ndarray] = None      # [T-1, N, 2L] int8 flat bytes
     wire_ref: Optional[jnp.ndarray] = None  # [T-1, 2L] int8 flat bytes
 
@@ -63,8 +63,8 @@ def _ema_scan(x: jnp.ndarray, alpha: float, w: jnp.ndarray) -> jnp.ndarray:
 
 
 def measure_blocks(cfg: PipelineConfig, sp, ctx):
-    """Phase A measurement on the prepared windows (spectra or fused-kernel
-    inputs, backend-dependent). Returns (lag, mag, papr) each [T', N]."""
+    """Phase A measurement on the prepared windows (backend-dependent
+    spectra). Returns (lag, mag, papr) each [T', N]."""
     est = sp.measure(ctx, cfg.lag_method)
     return est.lag, est.mag, est.papr
 
@@ -145,50 +145,40 @@ def _smooth_phases(
 def _align_offline_fused_i8(
     cfg: PipelineConfig,
     sp: FusedSpectral,
-    sig_u8: jnp.ndarray,  # [T, N, L, 2] uint8
-    ref_u8: jnp.ndarray,  # [T, L, 2] uint8
+    sig_u8: jnp.ndarray,  # [T, N, L, 2] uint8 (or flat [T, N, 2L])
+    ref_u8: jnp.ndarray,  # [T, L, 2] uint8 (or flat [T, 2L])
     smoothing: str,
 ) -> OfflineResult:
     """The i8-native offline engine: the same measure -> smooth -> apply
-    phases, but phases A and C are the raw-byte mega-kernels
-    (kernels/pallas_fused.py) — the only eager sample pass is the u8 XOR.
-    The phase estimate is arg(z) from the measure kernel (Parseval inner
-    product at the measured lag; see pipeline/step.py:_step_fused_u8), and
-    ``aligned`` is the int8 wire reconstruction — what clients receive."""
-    k = sp._k
-    m = k.m
+    phases on raw bytes (FusedSpectral.measure_i8 / apply_i8), one window
+    spectrum shared by phases A and C. The phase estimate is arg(z) from
+    the measurement (Parseval inner product at the measured lag; see
+    pipeline/step.py:_step_fused_u8), and ``aligned`` is the int8 wire
+    reconstruction — what clients receive."""
     T, N = sig_u8.shape[:2]
     L = cfg.block_len
-    # Accept [T, N, L, 2] or flat [T, N, 2L] bytes; reshape to the wide
-    # layout BEFORE the XOR so the elementwise pass runs on well-tiled
-    # arrays (a minor dim of 2 is 64x tile-bloated on TPU).
-    raw = u8_to_i8(sig_u8.reshape(T, N, m // 2, 2 * m))
-    ref_raw = u8_to_i8(ref_u8.reshape(T, m // 2, 2 * m))
+    raw = u8_to_i8(sig_u8.reshape(T, N, L, 2))
+    ref_raw = u8_to_i8(ref_u8.reshape(T, L, 2))
 
-    # Spectrum handoff: measure also stores each window's bf16 spectrum so
-    # apply skips its forward FFT (±1 int8 LSB vs recompute — the stored
-    # plane is bf16; docs/PERF.md round 3).
-    lag, zre, zim, mag, papr, dre, dim = k.measure_i8_spec(raw, ref_raw)
-    zabs = jnp.sqrt(zre * zre + zim * zim)
+    est = sp.measure_i8(raw, ref_raw)
+    zabs = jnp.abs(est.z)
 
-    delay = smooth_delays(cfg, lag, mag, smoothing)
+    delay = smooth_delays(cfg, est.lag, est.mag, smoothing)
     delay = jnp.clip(delay, -cfg.max_delay, cfg.max_delay)
 
-    z = zre + 1j * zim
     pc_inst = jnp.where(
-        zabs > 0, jnp.conj(z) / jnp.where(zabs > 0, zabs, 1.0), 1.0 + 0j
+        zabs > 0, jnp.conj(est.z) / jnp.where(zabs > 0, zabs, 1.0), 1.0 + 0j
     ).astype(jnp.complex64)
-    pc = _smooth_phases(cfg, pc_inst, mag, smoothing)
+    pc = _smooth_phases(cfg, pc_inst, est.mag, smoothing)
 
-    wire_raw = k.apply_spec_i8(dre, dim, delay, jnp.real(pc), jnp.imag(pc))
-    wire = wire_raw.reshape(T - 1, N, 2 * L)             # FLAT wire bytes
+    wire = sp.apply_i8(est.spec, delay, pc)              # [T-1, N, 2L] flat
     wire_ref = jnp.concatenate(
-        [ref_raw[:-1, m // 4:], ref_raw[1:, : m // 4]], axis=1
+        [ref_raw[:-1, L // 2:], ref_raw[1:, : L // 2]], axis=1
     ).reshape(T - 1, 2 * L)                              # [T-1, 2L] flat
     return OfflineResult(
         aligned=i8_iq_to_c64(wire.reshape(T - 1, N, L, 2)),
         ref=i8_iq_to_c64(wire_ref.reshape(T - 1, L, 2)),
-        lag=lag, delay=delay, mag=mag, papr=papr, phase=pc,
+        lag=est.lag, delay=delay, mag=est.mag, papr=est.papr, phase=pc,
         wire=wire, wire_ref=wire_ref,
     )
 
@@ -201,19 +191,17 @@ def align_offline(
 ) -> OfflineResult:
     """Align a whole capture. Returns T-1 output blocks (block 0 seeds the
     overlap-save history, like the streaming step's first block)."""
-    sp0 = get_spectral(cfg, 2 * cfg.block_len)
-    if isinstance(sp0, FusedSpectral):
-        return _align_offline_fused_i8(cfg, sp0, sig_u8, ref_u8, smoothing)
+    sp = get_spectral(cfg, 2 * cfg.block_len)
+    if isinstance(sp, FusedSpectral):
+        return _align_offline_fused_i8(cfg, sp, sig_u8, ref_u8, smoothing)
 
     sig = u8_to_c64(sig_u8)  # [T, N, L]
     ref = u8_to_c64(ref_u8)  # [T, L]
 
     # The backend assembles the streaming windows w[t] = blocks (t, t+1)
-    # itself (the fused backend never materializes them); w_ref is only
-    # needed here for the output/phase-reference slices.
+    # itself; w_ref is only needed here for the output/phase-reference
+    # slices.
     w_ref = jnp.concatenate([ref[:-1], ref[1:]], axis=-1)  # [T-1, 2L]
-
-    sp = get_spectral(cfg, 2 * cfg.block_len)
     ctx = sp.prepare(sig, ref)
 
     lag, mag, papr = measure_blocks(cfg, sp, ctx)

@@ -20,9 +20,15 @@ from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from coherent_rtlsdr_tpu import constants
+
+
+def _pytree_node(cls):
+    """Frozen dataclass registered as a pytree (every field a child), with
+    a functional ``replace(**changes)``."""
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(dataclasses.dataclass(frozen=True)(cls))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,13 +49,14 @@ class PipelineConfig:
     lag_method: str = "phase_slope"
     # Minimum correlation coefficient to accept a lag measurement.
     min_corr_mag: float = 0.1
-    # Spectral backend: "xla" (jnp.fft) | "mxu" (four-step matmul FFT,
-    # kernels/fft4step.py) | "pallas" (fused four-step kernel) | "fused"
-    # (single measure/apply mega-kernels, kernels/pallas_fused.py; requires
-    # lag_method="phase_zoom") | "auto" (mxu when 2L is a supported square).
+    # Spectral backend (kernels/backend.py): "xla" (jnp.fft) | "mxu"
+    # (four-step matmul FFT, kernels/fft4step.py) | "fused" (u8-native
+    # engine, int8 wire out; requires lag_method="phase_zoom") | "auto"
+    # (= "xla").
     fft_impl: str = "xla"
-    # MXU matmul precision: "bf16" (fast; error below the int8 wire
-    # quantization step) | "f32" (XLA 3-pass, exact-ish).
+    # Four-step matmul precision: "bf16" (bf16 operands, f32 accumulation;
+    # error below the int8 wire quantization step) | "f32" (full-precision
+    # f32 matmuls).
     mxu_precision: str = "bf16"
 
     def __post_init__(self):
@@ -57,11 +64,11 @@ class PipelineConfig:
             object.__setattr__(self, "max_delay", self.block_len / 2.0 - 8.0)
 
 
-class PipelineState(struct.PyTreeNode):
-    """NOTE on dtypes: complex quantities are stored as float32 (re, im)
-    pairs, NOT complex64 — this backend cannot materialize complex buffers
-    at XLA program boundaries (only inside a program). ``f2c``/``c2f``
-    convert at the edges of ``step()``; XLA fuses them away."""
+@_pytree_node
+class PipelineState:
+    """Complex quantities are stored as float32 (re, im) pairs, so every
+    leaf packs into the dense real tensors of ``pack_state``; ``f2c``/``c2f``
+    convert at the edges of ``step()`` and XLA fuses them away."""
 
     delay: jnp.ndarray     # [N] f32 commanded advance (samples)
     phase: jnp.ndarray     # [N, 2] f32 unit-modulus correction factor (re, im)
@@ -70,9 +77,8 @@ class PipelineState(struct.PyTreeNode):
     papr: jnp.ndarray      # [N] f32 last correlation PAPR
     synced: jnp.ndarray    # [N] bool
     hist: jnp.ndarray      # previous block (overlap-save): [N, L, 2] f32, or
-                           # [N, m/2, 2m] i8 raw bytes when fft_impl='fused'
-    ref_hist: jnp.ndarray  # previous ref block: [L, 2] f32, or [m/2, 2m] i8
-                           # raw bytes when fft_impl='fused'
+                           # signed i8 capture bytes when fft_impl='fused'
+    ref_hist: jnp.ndarray  # previous ref block: [L, 2] f32 (i8 when fused)
     block_idx: jnp.ndarray  # i32 scalar
     # In-pipeline seqnum-gap detection (the reference only detects drops
     # client-side via seqnums, README.md:42 / cpacketizer.cc:113,142):
@@ -85,7 +91,8 @@ class PipelineState(struct.PyTreeNode):
         return self.phase[..., 0] + 1j * self.phase[..., 1]
 
 
-class Telemetry(struct.PyTreeNode):
+@_pytree_node
+class Telemetry:
     """Per-block measurement record — the union of the reference's lagpoint,
     the :5557 phase-factor debug stream, and the ``status`` table."""
 
@@ -114,11 +121,9 @@ TELEMETRY_COLS = (
 def pack_telemetry(t: Telemetry) -> jnp.ndarray:
     """Telemetry as ONE dense [.., N, 10] f32 tensor (TELEMETRY_COLS order).
 
-    Per-dispatch overhead on this backend scales with the number of
-    argument/output buffers (~0.4 ms for the 9 telemetry leaves at the
-    round-4 probe), and the server's publisher worker fetches telemetry
-    every batch — one tensor means one transfer instead of nine. Bool
-    leaves travel as 0.0/1.0; ``gaps`` counts are exact in f32 up to 2^24.
+    The server's publisher worker fetches telemetry every batch — one
+    tensor means one transfer instead of nine. Bool leaves travel as
+    0.0/1.0; ``gaps`` counts are exact in f32 up to 2^24.
     """
     return jnp.stack([
         t.lag, t.residual, t.mag, t.papr, t.rms,
@@ -130,11 +135,9 @@ def pack_telemetry(t: Telemetry) -> jnp.ndarray:
 
 
 # Packed-state layout across the jit boundary (pack_state / unpack_state).
-# Per-dispatch issue overhead on this backend scales with the argument/
-# output LEAF count (~2 ms/call on the 15-leaf step vs 0.2 ms on a 1-arg
-# toy — docs/PERF.md round 4), and the streaming state crosses the boundary
-# every dispatch in AND out. Packing the 11 PipelineState leaves into THREE
-# dense tensors cuts that flat cost directly; XLA fuses the stack/slice
+# The streaming state crosses the boundary every dispatch in AND out;
+# packing the 11 PipelineState leaves into THREE dense tensors means three
+# buffers per direction instead of eleven, and XLA fuses the stack/slice
 # glue into the neighboring ops.
 PPACK_COLS = ("delay", "phase_re", "phase_im", "lag", "mag", "papr")
 IPACK_COLS = ("synced", "last_seq", "gaps", "block_idx")
@@ -186,8 +189,8 @@ def unpack_state(ppack, ipack, hist) -> PipelineState:
 
 
 def pack_state_host(s: PipelineState):
-    """Eager-edge pack: numpy on host, ONE upload per packed tensor (never
-    eager device ops — pathological on this backend)."""
+    """Eager-edge pack: numpy on host, ONE upload per packed tensor (no
+    per-leaf eager device ops)."""
     import numpy as np
 
     delay = np.asarray(s.delay, np.float32)
@@ -219,9 +222,9 @@ def unpack_state_host(ppack, ipack, hist) -> PipelineState:
     are returned as NUMPY arrays, not device arrays — the host touchpoints
     that consume this view (status table, checkpoint save, hot-plug remap,
     tests) read with np.asarray anyway, and re-uploading 11 leaves per
-    console command would cost ~11 needless transfers on a backend with a
-    13-26 ms per-sync RTT. pack_state_host accepts numpy leaves, so a
-    replace()d view rides straight back into the packed carry."""
+    console command would cost 11 needless transfers. pack_state_host
+    accepts numpy leaves, so a replace()d view rides straight back into the
+    packed carry."""
     import numpy as np
 
     pp = np.asarray(ppack)
@@ -242,17 +245,16 @@ def unpack_state_host(ppack, ipack, hist) -> PipelineState:
     )
 
 
-class BlockOutput(struct.PyTreeNode):
-    """``aligned``/``ref`` are complex64 — valid INSIDE a jitted program and
-    on CPU; TPU callers must reduce them to real dtypes (int8 wire format /
-    float pairs) before returning from jit (see io/server.py, bench.py).
+@_pytree_node
+class BlockOutput:
+    """``aligned``/``ref`` are complex64; the hot callers reduce them to the
+    int8 wire format inside the jitted program (io/server.py, bench.py).
 
     The fused i8-native path (fft_impl='fused') additionally emits the int8
-    wire frame directly from its apply kernel (``wire``/``wire_ref``) as
-    FLAT interleaved bytes — [N, 2L]/[2L], reshape host-side; a [.., L, 2]
-    byte array would be 64x tile-bloated on TPU. Its ``aligned``/``ref``
-    are then reconstructions from the wire bytes (same fidelity the clients
-    see) that XLA dead-code-eliminates when unused."""
+    wire frame directly (``wire``/``wire_ref``) as FLAT interleaved bytes —
+    [N, 2L]/[2L], reshape host-side. Its ``aligned``/``ref`` are then
+    reconstructions from the wire bytes (same fidelity the clients see)
+    that XLA dead-code-eliminates when unused."""
 
     aligned: jnp.ndarray   # [N, L] c64 corrected signal channels
     ref: jnp.ndarray       # [L] c64 reference channel (same pipeline latency)
@@ -264,19 +266,11 @@ class BlockOutput(struct.PyTreeNode):
 def init_state(cfg: PipelineConfig) -> PipelineState:
     N, L = cfg.n_channels, cfg.block_len
     phase0 = jnp.zeros((N, 2), jnp.float32).at[:, 0].set(1.0)
-    if cfg.fft_impl == "fused":
-        # i8-native fast path: history is the capture bytes after offset
-        # removal (u8 XOR 0x80 — Mosaic has no u8->f32 cast), kept RAW and
-        # interleaved (row r of [m/2, 2m] = samples [r*m, (r+1)*m) as
-        # I0 Q0 I1 Q1 ...); the fused kernels de-interleave internally.
-        # Byte arrays must never have a minor dim of 2 on TPU (64x tile
-        # bloat) — both leaves stay in the wide [*, 2m] layout.
-        m = int(round((2 * L) ** 0.5))
-        hist = jnp.zeros((N, L // m, 2 * m), jnp.int8)
-        ref_hist = jnp.zeros((L // m, 2 * m), jnp.int8)
-    else:
-        hist = jnp.zeros((N, L, 2), jnp.float32)
-        ref_hist = jnp.zeros((L, 2), jnp.float32)
+    # The fused path keeps the capture bytes after offset removal (u8 XOR
+    # 0x80, i.e. signed int8 IQ); the others keep dequantized float pairs.
+    hist_dtype = jnp.int8 if cfg.fft_impl == "fused" else jnp.float32
+    hist = jnp.zeros((N, L, 2), hist_dtype)
+    ref_hist = jnp.zeros((L, 2), hist_dtype)
     return PipelineState(
         delay=jnp.zeros((N,), jnp.float32),
         phase=phase0,

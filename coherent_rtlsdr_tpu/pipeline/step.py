@@ -1,6 +1,6 @@
 """The per-block hot path as one pure, jittable function.
 
-This is the TPU-native replacement for the reference's entire concurrent hot
+This replaces the reference's entire concurrent hot
 loop — ccoherent::threadf (ccoherent.cc:245-294), computelag
 (ccoherent.cc:154-239), est_phasecorrect/phasecorrect (csdrdevice.cc:58-84)
 and the ccontrol feedback (ccontrol.cc:78-123) — with three structural
@@ -100,8 +100,7 @@ def step(
     # One block-preparation pass feeds both measurement and correction;
     # the window of this step is blocks (t-1, t) = (history, current).
     # (State history is stored as float pairs; complexify inside the
-    # program.) Backends: spectra for xla/mxu, fused Pallas mega-kernels
-    # for 'fused' (kernels/backend.py).
+    # program.) Backends: kernels/backend.py.
     sig_blocks = jnp.stack([f2c(state.hist), sig])        # [2, N, L]
     ref_blocks = jnp.stack([f2c(state.ref_hist), ref])    # [2, L]
     ctx = sp.prepare(sig_blocks, ref_blocks)
@@ -164,24 +163,24 @@ def step(
 def _step_fused_u8(
     cfg: PipelineConfig,
     state: PipelineState,
-    sig_u8: jnp.ndarray,   # [N, L, 2] uint8
-    ref_u8: jnp.ndarray,   # [L, 2] uint8
+    sig_u8: jnp.ndarray,   # [N, L, 2] uint8 (or flat [N, 2L])
+    ref_u8: jnp.ndarray,   # [L, 2] uint8 (or flat [2L])
     update_gate: jnp.ndarray,
     seq: jnp.ndarray = None,
 ) -> Tuple[PipelineState, BlockOutput]:
     """The fft_impl='fused' streaming step: raw u8 bytes in, int8 wire bytes
-    out, with every wide-dtype pass inside the Pallas mega-kernels
-    (kernels/pallas_fused.py u8-native path).
+    out (kernels/backend.FusedSpectral.measure_i8 / apply_i8).
 
     vs the generic step():
-      * history is the raw u8 planes (4x less state HBM than f32 pairs);
-        dequant happens in the kernel prologues;
-      * the phase estimate is arg(z) from the measure kernel's correlation
+      * history is the signed int8 capture bytes (4x less state than f32
+        pairs); dequantization happens inside the window assembly;
+      * the phase estimate is arg(z) from the measurement's correlation
         value (Parseval: <y_corrected, ref_window> = z/W at the measured
         lag) — identical to the time-domain conj-dot when the channel is
         locked (applied delay == measured lag), and gated identically;
-      * the phase correction multiplies the frequency-domain ramp inside the
-        apply kernel (free), which requantizes straight to int8 wire bytes.
+      * one window spectrum feeds both measurement and correction, and the
+        phase correction multiplies it before the inverse transform, which
+        requantizes straight to int8 wire bytes.
 
     Semantic deltas vs the generic step (both below measurement noise once
     locked, and covered by the equivalence tests): the phase estimate uses
@@ -191,41 +190,27 @@ def _step_fused_u8(
     """
     if cfg.lag_method not in ("phase_zoom", "auto"):
         raise ValueError(
-            "fft_impl='fused' computes lag in-kernel with the phase_zoom "
+            "fft_impl='fused' measures lag with the phase_zoom "
             f"estimator; set lag_method='phase_zoom' (got '{cfg.lag_method}')"
         )
     from coherent_rtlsdr_tpu.kernels.backend import get_spectral
 
     L = cfg.block_len
+    N = cfg.n_channels
     sp = get_spectral(cfg, 2 * L)
-    k = sp._k
-    m = k.m
 
     seq, gap, new_gaps, meas_ok = _seq_gap(state, seq, update_gate)
 
-    # Offset removal (XOR 0x80) is the ONLY eager pass over the samples —
-    # elementwise, no relayout. CRITICAL layout rule: byte arrays with a
-    # minor dim of 2 ([N, L, 2]) get (32, 128)-tiled on TPU with 2 valid
-    # lanes per tile — a 64x physical bloat that makes even an XOR cost
-    # ~800 us/blk. Hot callers therefore pass FLAT bytes ([N, 2L]); the
-    # reshape below normalizes either logical shape, but only the wide
-    # layout is fast on device. Dequant/de-interleave happen inside the
-    # kernels as 0/1 selection matmuls.
-    N = cfg.n_channels
-    raw_cur = u8_to_i8(sig_u8.reshape(N, m // 2, 2 * m))  # [N, m/2, 2m]
-    ref_cur = u8_to_i8(ref_u8.reshape(m // 2, 2 * m))     # [m/2, 2m]
-    raw = jnp.stack([state.hist, raw_cur])                # [2, N, m/2, 2m]
-    ref_raw = jnp.stack([state.ref_hist, ref_cur])        # [2, m/2, 2m]
+    # Offset removal (XOR 0x80) is the only pass over the bytes before the
+    # window assembly; either logical input shape is accepted.
+    raw_cur = u8_to_i8(sig_u8.reshape(N, L, 2))
+    ref_cur = u8_to_i8(ref_u8.reshape(L, 2))
+    raw = jnp.stack([state.hist, raw_cur])                # [2, N, L, 2]
+    ref_raw = jnp.stack([state.ref_hist, ref_cur])        # [2, L, 2]
 
-    # Spectrum handoff: the window spectra computed for measurement are
-    # stored (bf16) and reused by apply — no second forward FFT, no raw
-    # re-read (docs/PERF.md round 3).
-    lag_b, zre_b, zim_b, mag_b, papr_b, dre_b, dim_b = k.measure_i8_spec(
-        raw, ref_raw
-    )
-    lag, zre, zim = lag_b[0], zre_b[0], zim_b[0]
-    mag, papr = mag_b[0], papr_b[0]
-    zabs = jnp.sqrt(zre * zre + zim * zim)
+    est = sp.measure_i8(raw, ref_raw)
+    lag, z, mag, papr = est.lag[0], est.z[0], est.mag[0], est.papr[0]
+    zabs = jnp.abs(z)
 
     new_delay, new_synced = control_update(
         cfg, state.delay, state.synced, lag, mag, meas_ok
@@ -234,7 +219,6 @@ def _step_fused_u8(
 
     # pc_inst = conj(z)/|z| (phase_correction_estimate convention applied to
     # the Parseval inner product; csdrdevice.cc:58-69 analog).
-    z = zre + 1j * zim
     pc_inst = jnp.where(zabs > 0, jnp.conj(z) / jnp.where(zabs > 0, zabs, 1.0),
                         1.0 + 0j).astype(jnp.complex64)
     good = meas_ok & (mag >= cfg.min_corr_mag)
@@ -242,16 +226,11 @@ def _step_fused_u8(
     ema = ema_complex(old_phase, pc_inst, alpha=cfg.phase_alpha)
     new_phase = jnp.where(good, ema, old_phase)
 
-    wire_raw = k.apply_spec_i8(
-        dre_b, dim_b, new_delay[None],
-        jnp.real(new_phase)[None], jnp.imag(new_phase)[None],
-    )[0]                                                  # [N, m/2, 2m] i8
-    wire = wire_raw.reshape(N, 2 * L)                     # FLAT wire bytes
+    wire = sp.apply_i8(est.spec, new_delay[None], new_phase[None])[0]
     # Reference channel: raw passthrough at the same pipeline latency
     # (cpacketizer.cc:137-156 — ref is never requantized, only re-signed).
-    # Half a block = m/4 raw rows.
     wire_ref = jnp.concatenate(
-        [state.ref_hist[m // 4:], ref_cur[: m // 4]], axis=0
+        [state.ref_hist[L // 2:], ref_cur[: L // 2]], axis=0
     ).reshape(2 * L)                                      # [2L] int8 flat
 
     # Wire-fidelity complex views (DCE'd by XLA when the caller only
@@ -259,8 +238,8 @@ def _step_fused_u8(
     aligned = i8_iq_to_c64(wire.reshape(N, L, 2))
     out_ref = i8_iq_to_c64(wire_ref.reshape(L, 2))
 
-    # Block RMS from the well-tiled raw bytes: mean(I^2+Q^2) over L samples
-    # = 2 * mean(byte^2) over the 2L interleaved bytes.
+    # Block RMS: mean(I^2+Q^2) over L samples = 2 * mean(byte^2) over the
+    # 2L interleaved bytes.
     f = raw_cur.astype(jnp.float32)
     rms_val = jnp.sqrt(2.0 * jnp.mean(f * f, axis=(-2, -1))) * IQ_SCALE
 
@@ -296,7 +275,7 @@ def _step_fused_u8(
 
 def make_step(cfg: PipelineConfig, donate: bool = True):
     """Jitted streaming step with the state buffer donated (the hist buffers
-    are the large carry; donation keeps HBM traffic at one block in, one
-    aligned block out)."""
+    are the large carry; donation keeps device memory traffic at one block
+    in, one aligned block out)."""
     f = partial(step, cfg)
     return jax.jit(f, donate_argnums=(0,) if donate else ())

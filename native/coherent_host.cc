@@ -2,7 +2,7 @@
 //
 // The reference implements its runtime in C++ (capture ring `cbuffer`
 // common.h:41-149, packetizer `cpacketize` cpacketizer.cc, ZMQ publisher);
-// this library provides the TPU framework's equivalents as a small C ABI
+// this library provides the framework's equivalents as a small C ABI
 // consumed from Python via ctypes (no pybind11 in this image):
 //
 //   * block ring buffer: single-producer single-consumer ring of fixed-size
@@ -344,7 +344,7 @@ uint32_t chost_pub_gseq(void *pv) {
 // The capture side of the runtime: an asynchronous reader thread pushing raw
 // blocks into the ring — the reference's per-device `asynch_threadf`
 // (src/crtlsdr.cc:44-59, librtlsdr USB callbacks) generalized to the two
-// ingest transports the TPU host actually has: file replay (recorded
+// ingest transports the pipeline host actually has: file replay (recorded
 // captures, rate-paced to simulate a live array) and a ZMQ raw-stream
 // receiver (the czmqsdr stub's intent, include/csdrdevice.h:270-272 — a
 // remote capture daemon streams raw frames over the network).

@@ -2,7 +2,7 @@
 (tests/test_distributed.py). Each of 2 processes owns 4 virtual CPU devices;
 the (time=2, channel=4) mesh spans both, so the sharded align's psum /
 ppermute collectives cross the process boundary for real (SURVEY.md §4:
-multi-host tests on CPU meshes before TPU runs).
+multi-host tests on CPU meshes).
 
 Prints DIST-OK on success, DIST-SKIP:<reason> when the environment cannot do
 cross-process CPU collectives.

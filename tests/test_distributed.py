@@ -1,5 +1,5 @@
 """Multi-process jax.distributed validation (SURVEY.md §4: multi-host tests
-on CPU meshes before TPU runs): 2 processes x 4 virtual CPU devices run the
+on CPU meshes): 2 processes x 4 virtual CPU devices run the
 sharded offline align over one global (2, 4) mesh, so the psum/ppermute
 collectives really cross the process boundary; each process asserts its
 addressable shards against the single-process engine."""

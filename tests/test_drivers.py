@@ -171,8 +171,8 @@ class TestPackedState:
     def test_unpack_host_returns_numpy_leaves(self):
         """The host-edge unpack must NOT re-upload leaves to the device:
         console touchpoints (status, checkpoint) read the view with numpy
-        and re-uploading 11 leaves per command costs ~11 transfers on a
-        13-26 ms-RTT backend (round-5 review finding)."""
+        and re-uploading 11 leaves per command would cost 11 needless
+        transfers."""
         from coherent_rtlsdr_tpu.pipeline.state import (
             pack_state_host,
             unpack_state_host,

@@ -1,5 +1,6 @@
-"""MXU four-step FFT kernel tests: exact layout semantics vs jnp.fft, and
-pipeline equivalence between the 'xla' and 'mxu' spectral backends."""
+"""Spectral backend tests: the four-step matmul FFT's layout semantics vs
+jnp.fft, backend selection, and pipeline equivalence between the 'xla',
+'mxu' and 'fused' spectral backends."""
 
 import jax
 import jax.numpy as jnp
@@ -65,62 +66,75 @@ class TestFFT4Step:
         assert k.max() == W - 1 and len(np.unique(k)) == W
 
 
-class TestPallasFFT:
-    """Fused Pallas kernel vs the einsum four-step and jnp.fft (interpreter
-    mode on CPU; compiled on TPU)."""
+class TestFFT4StepPrecision:
+    """The 'f32' four-step runs its matmuls at full f32 precision: on a GPU
+    the default f32 matmul may drop to TF32 (~3 decimal digits)."""
 
-    def test_forward_matches_jnp_fft(self):
-        from coherent_rtlsdr_tpu.kernels.pallas_fft import FFT4StepPallas
-
-        fft = FFT4StepPallas(W)
-        x = _noise(jax.random.PRNGKey(10), (2, W))
+    def test_f32_highest_matches_jnp_fft(self):
+        fft = FFT4Step(W, precision="f32")
+        x = _noise(jax.random.PRNGKey(5), (2, W))
         D = fft.fft(x)
         expect = _to_permuted(jnp.fft.fft(x, axis=-1))
         scale = float(jnp.max(jnp.abs(expect)))
         err = float(jnp.max(jnp.abs(D - expect))) / scale
-        assert err < 3e-2, err  # bf16 matmuls
+        assert err < 1e-5, err
 
-    def test_roundtrip(self):
-        from coherent_rtlsdr_tpu.kernels.pallas_fft import FFT4StepPallas
+    @pytest.mark.parametrize("precision,want", [
+        ("f32", "HIGHEST"), ("bf16", "DEFAULT"),
+    ])
+    def test_einsum_precision_named(self, precision, want):
+        fft = FFT4Step(W, precision=precision)
+        x = _noise(jax.random.PRNGKey(6), (1, W))
+        jaxpr = jax.make_jaxpr(lambda v: fft.ifft(fft.fft(v)))(x).jaxpr
+        precs = [e.params["precision"] for e in jaxpr.eqns
+                 if e.primitive.name == "dot_general"]
+        assert len(precs) == 16, len(precs)  # 4 real matmuls x 2 stages x 2
+        assert all(str(q) == want for pr in precs for q in pr), precs[0]
 
-        fft = FFT4StepPallas(W)
-        x = _noise(jax.random.PRNGKey(11), (2, W))
-        y = fft.ifft(fft.fft(x))
-        rms = float(jnp.sqrt(jnp.mean(jnp.abs(x) ** 2)))
-        err = float(jnp.sqrt(jnp.mean(jnp.abs(y - x) ** 2))) / rms
-        assert err < 2e-2, err
+    def test_rejects_unknown_precision(self):
+        with pytest.raises(ValueError, match="precision"):
+            FFT4Step(W, precision="tf32")
 
-    def test_tiled_matches_single(self):
-        """tile=8 stacked-matmul path must equal the per-transform path
-        (batch divisible by the tile exercises the tiled kernel)."""
-        from coherent_rtlsdr_tpu.kernels.pallas_fft import FFT4StepPallas
 
-        f1 = FFT4StepPallas(W, tile=1)
-        f8 = FFT4StepPallas(W, tile=8)
-        x = _noise(jax.random.PRNGKey(12), (16, W))
-        d1, d8 = f1.fft(x), f8.fft(x)
-        scale = float(jnp.max(jnp.abs(d1)))
-        assert float(jnp.max(jnp.abs(d8 - d1))) / scale < 1e-5
-        y1, y8 = f1.ifft(d1), f8.ifft(d1)
-        scale = float(jnp.max(jnp.abs(y1)))
-        assert float(jnp.max(jnp.abs(y8 - y1))) / scale < 1e-5
+class TestBackendSelection:
+    @pytest.mark.parametrize("impl", ["pallas", "fftw", ""])
+    def test_unknown_impl_rejected(self, impl):
+        from coherent_rtlsdr_tpu.kernels.backend import get_spectral
+        from coherent_rtlsdr_tpu.pipeline import PipelineConfig
 
-    def test_pipeline_backend(self):
-        """fft_impl='pallas' end to end on a short capture."""
-        from coherent_rtlsdr_tpu.pipeline import PipelineConfig, init_state, step
-        from coherent_rtlsdr_tpu.signal import make_truth, synth_capture
+        cfg = PipelineConfig(n_channels=2, block_len=W // 2, fft_impl=impl)
+        with pytest.raises(ValueError, match="unknown fft_impl"):
+            get_spectral(cfg, W)
 
-        L = 2048
-        truth = make_truth(3, seed=2, max_delay=30.0, snr_db=30.0)
-        cap = synth_capture(jax.random.PRNGKey(2), truth, n_blocks=8, block_len=L)
-        cfg = PipelineConfig(n_channels=3, block_len=L, fft_impl="pallas")
-        state = init_state(cfg)
-        gate = jnp.array(True)
-        jstep = jax.jit(lambda s, a, b: step(cfg, s, a, b, gate))
-        for t in range(8):
-            state, out = jstep(state, cap.sig_u8[t], cap.ref_u8[t])
-        np.testing.assert_allclose(np.asarray(state.delay), truth.delays, atol=0.1)
-        assert bool(jnp.all(state.synced))
+    @pytest.mark.parametrize("fft_len", [W, 8192])
+    def test_auto_resolves_to_xla(self, fft_len):
+        """'auto' is the XLA backend at every length, square or not."""
+        from coherent_rtlsdr_tpu.kernels.backend import XlaSpectral, get_spectral
+        from coherent_rtlsdr_tpu.pipeline import PipelineConfig
+
+        cfg = PipelineConfig(n_channels=2, block_len=fft_len // 2,
+                             fft_impl="auto")
+        assert type(get_spectral(cfg, fft_len)) is XlaSpectral
+
+    @pytest.mark.parametrize("impl,cls", [
+        ("xla", "XlaSpectral"), ("mxu", "MxuSpectral"),
+        ("fused", "FusedSpectral"),
+    ])
+    def test_named_backends(self, impl, cls):
+        from coherent_rtlsdr_tpu.kernels import backend
+        from coherent_rtlsdr_tpu.pipeline import PipelineConfig
+
+        cfg = PipelineConfig(n_channels=2, block_len=W // 2, fft_impl=impl)
+        assert type(backend.get_spectral(cfg, W)).__name__ == cls
+
+    def test_square_length_still_required(self):
+        from coherent_rtlsdr_tpu.kernels.backend import get_spectral
+        from coherent_rtlsdr_tpu.pipeline import PipelineConfig
+
+        cfg = PipelineConfig(n_channels=2, block_len=4096, fft_impl="fused",
+                             lag_method="phase_zoom")
+        with pytest.raises(ValueError, match="square"):
+            get_spectral(cfg, 8192)
 
 
 class TestPermutedOps:
@@ -208,9 +222,9 @@ class TestPipelineBackendEquivalence:
 
 
 class TestFusedKernels:
-    """Fused measure/apply mega-kernels (kernels/pallas_fused.py) vs the
-    composed XLA path (interpreter mode on CPU; compiled on TPU). The
-    backend interface is stream blocks: window t = blocks (t, t+1)."""
+    """The u8-native fused engine (kernels/backend.FusedSpectral) vs the
+    composed XLA path. The backend interface is stream blocks: window t =
+    blocks (t, t+1)."""
 
     def _blocks(self, key, n_blocks=3, lags=(4.25, -33.7, 0.0)):
         """A continuous stream of n_blocks L-blocks; channels are exact
@@ -272,7 +286,7 @@ class TestFusedKernels:
         assert yf.shape == (1, 3, W // 2)
         rms = float(jnp.sqrt(jnp.mean(jnp.abs(yx) ** 2)))
         err = float(jnp.sqrt(jnp.mean(jnp.abs(yf - yx) ** 2))) / rms
-        assert err < 2e-2, err  # bf16 matmuls vs f32 FFT
+        assert err < 2e-2, err
 
     def test_measure_rejects_other_methods(self):
         from coherent_rtlsdr_tpu.kernels.backend import FusedSpectral
@@ -329,9 +343,9 @@ class TestFusedKernels:
             np.asarray(sf.delay), np.asarray(sx.delay), atol=2e-2
         )
         assert bool(jnp.all(sf.synced))
-        # wire frames agree to a couple of int8 LSB (bf16 kernels + the
-        # full-window-vs-center-half phase estimator delta); fused wire is
-        # FLAT bytes [N, 2L]
+        # wire frames agree to a couple of int8 LSB (the full-window-vs-
+        # center-half phase estimator delta); fused wire is FLAT bytes
+        # [N, 2L]
         assert of.wire is not None and of.wire.dtype == jnp.int8
         wx = np.asarray(c64_to_i8_iq(ox.aligned), np.int32)
         wf = np.asarray(of.wire, np.int32).reshape(wx.shape)
@@ -410,41 +424,47 @@ class TestFusedKernels:
         assert err.max() / rms < 0.06
 
     def test_spec_handoff_matches_apply_i8(self):
-        """measure_i8_spec + apply_spec_i8 (spectrum handoff: no second
-        forward FFT) must reproduce measure_i8 + apply_i8 — identical
-        measurement scalars; wire bytes equal up to the bf16 rounding of
-        the stored spectrum (the in-kernel path ramps the f32 spectrum)."""
-        from coherent_rtlsdr_tpu.kernels.pallas_fused import FusedPipelineKernels
-        from coherent_rtlsdr_tpu.ops.convert import u8_to_i8
+        """measure_i8 + apply_i8 (one spectrum shared by measurement and
+        correction, raw bytes in, wire bytes out) must reproduce the
+        generic XLA backend on the same bytes: the phase_zoom estimate, and
+        the corrected center half requantized to int8."""
+        from coherent_rtlsdr_tpu.kernels.backend import FusedSpectral, XlaSpectral
+        from coherent_rtlsdr_tpu.ops.convert import (
+            c64_to_i8_iq,
+            i8_iq_to_c64,
+            u8_to_i8,
+        )
 
-        k = FusedPipelineKernels(W)
-        m = k.m
+        k = FusedSpectral(W)
+        L = W // 2
         T, N = 4, 3
         rng = np.random.default_rng(11)
-        raw = jnp.asarray(u8_to_i8(jnp.asarray(
-            rng.integers(0, 256, (T, N, m // 2, 2 * m), dtype=np.uint8))))
-        ref_raw = jnp.asarray(u8_to_i8(jnp.asarray(
-            rng.integers(0, 256, (T, m // 2, 2 * m), dtype=np.uint8))))
+        raw = u8_to_i8(jnp.asarray(
+            rng.integers(0, 256, (T, N, L, 2), dtype=np.uint8)))
+        ref_raw = u8_to_i8(jnp.asarray(
+            rng.integers(0, 256, (T, L, 2), dtype=np.uint8)))
         adv = jnp.asarray(rng.uniform(-20, 20, (T - 1, N)).astype(np.float32))
-        ph = np.exp(1j * rng.uniform(-np.pi, np.pi, (T - 1, N)))
-        pre = jnp.asarray(ph.real.astype(np.float32))
-        pim = jnp.asarray(ph.imag.astype(np.float32))
+        ph = jnp.asarray(np.exp(1j * rng.uniform(-np.pi, np.pi, (T - 1, N)))
+                         .astype(np.complex64))
 
-        base = jax.jit(lambda r, rr: k.measure_i8(r, rr))(raw, ref_raw)
-        spec = jax.jit(lambda r, rr: k.measure_i8_spec(r, rr))(raw, ref_raw)
-        for a, b in zip(base, spec[:5]):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-6, atol=1e-6)
+        est = jax.jit(k.measure_i8)(raw, ref_raw)
+        assert est.spec.shape == (T - 1, N, W)
+        xla = XlaSpectral(W)
+        ctx = xla.prepare(i8_iq_to_c64(raw), i8_iq_to_c64(ref_raw))
+        ex = xla.measure(ctx, "phase_zoom")
+        np.testing.assert_allclose(np.asarray(est.lag), np.asarray(ex.lag),
+                                   atol=1e-4)
+        np.testing.assert_allclose(np.asarray(est.mag), np.asarray(ex.mag),
+                                   rtol=1e-4)
+        np.testing.assert_allclose(np.asarray(est.papr), np.asarray(ex.papr),
+                                   rtol=1e-4)
 
-        w_base = jax.jit(lambda r, a, p1, p2: k.apply_i8(r, a, p1, p2))(
-            raw, adv, pre, pim)
-        w_spec = jax.jit(lambda d1, d2, a, p1, p2: k.apply_spec_i8(
-            d1, d2, a, p1, p2))(spec[5], spec[6], adv, pre, pim)
-        diff = np.abs(np.asarray(w_base, np.int32) - np.asarray(w_spec, np.int32))
-        # The stored spectrum is bf16 (rel err ~2^-9) while the in-kernel
-        # path ramps the f32 spectrum; on a +-127 int8 scale that flips
-        # values sitting near a rounding boundary by one LSB — quantization
-        # noise, far inside the pipeline's 6%-rms wire-fidelity bound.
-        assert diff.max() <= 2
-        assert (diff > 1).mean() < 1e-3
-        assert (diff != 0).mean() < 0.35
+        wire = jax.jit(k.apply_i8)(est.spec, adv, ph)
+        assert wire.shape == (T - 1, N, W) and wire.dtype == jnp.int8
+        expect = c64_to_i8_iq(xla.correct(ctx, adv) * ph[..., None])
+        diff = np.abs(np.asarray(wire, np.int32).reshape(expect.shape)
+                      - np.asarray(expect, np.int32))
+        # same f32 math in another order: a value sitting on a rounding
+        # boundary may flip by one LSB, nothing more
+        assert diff.max() <= 1
+        assert (diff != 0).mean() < 1e-3

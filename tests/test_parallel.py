@@ -104,7 +104,7 @@ class TestAutoShardedAlign:
 class TestChannelShardedAlign:
     def test_fused_matches_unsharded(self):
         """The fused i8 offline engine under channel-only shard_map (the
-        multi-chip throughput path — GSPMD cannot partition Pallas calls)
+        multi-device throughput path)
         must match the unsharded engine: smoothing is channel-local, so the
         per-shard programs compute the same terms."""
         from coherent_rtlsdr_tpu.parallel import make_channel_sharded_align
@@ -136,8 +136,8 @@ class TestChannelShardedAlign:
         assert diff.max() <= 1  # bf16 accumulation-order LSB at most
 
     def test_fused_time_sharded_matches_unsharded(self):
-        """The raw-byte ppermute halo runner (the flagship multi-chip path:
-        fused mega-kernels sharded over BOTH mesh axes) must match the
+        """The raw-byte ppermute halo runner (the fused engine sharded over
+        BOTH mesh axes) must match the
         unsharded fused engine — the halo'd shard-boundary windows and the
         psum-reduced smoothing are implementation details, not numerics."""
         from coherent_rtlsdr_tpu.parallel import make_fused_time_sharded_align

@@ -571,8 +571,8 @@ class TestConsoleFuzz:
 
 
 class TestSoakRegressions:
-    """Bugs surfaced by the round-4 live TPU soak (12 min, mid-run console
-    mutations)."""
+    """Bugs surfaced by a 12-minute live soak with mid-run console
+    mutations."""
 
     def test_status_works_after_hot_add(self):
         """Telemetry history holds [N]-wide series; after an add the width
@@ -631,7 +631,7 @@ class TestSoakRegressions:
 
 
 class TestShardedServer:
-    """Multi-chip serving: the server's jits channel-sharded over a device
+    """Multi-device serving: the server's jits channel-sharded over a device
     mesh (parallel/sharded.py make_sharded_server_jits) — published frames
     match the unsharded server within int8 wire quantization."""
 
@@ -697,11 +697,11 @@ class TestShardedServer:
         assert "3 / 3" in srv.status().splitlines()[0]
 
     def test_fused_backend_on_mesh(self):
-        """--mesh with the fused i8 mega-kernel backend (the pod
+        """--mesh with the fused i8 backend (the multi-device
         configuration): flat byte layout through the sharded jits."""
         from coherent_rtlsdr_tpu.parallel import make_mesh
 
-        Lf = 2048  # fused kernels need a square fft_len (2L = 4096 = 64^2)
+        Lf = 2048  # the fused engine needs a square fft_len (2L = 4096 = 64^2)
         truth = make_truth(2, seed=23, max_delay=20.0, snr_db=30.0)
         src = SyntheticStreamSource(truth, block_len=Lf, slab_blocks=4,
                                     seed=23)

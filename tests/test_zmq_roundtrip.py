@@ -259,8 +259,11 @@ class TestClientFcCache:
             assert cli.center_frequency == 868e6
         finally:
             cli.close()
-            router.close(0)
+            # the serve thread owns the socket until its recv times out:
+            # closing it under a blocked recv aborts inside libzmq
             th.join(timeout=10)
+            assert not th.is_alive()
+            router.close(0)
 
     def test_first_command_timeout_then_late_failed_invalidates_cache(self):
         """The first-ever command has no proof the server replies, so a
@@ -329,8 +332,11 @@ class TestClientFcCache:
             assert cli.center_frequency == 868e6
         finally:
             cli.close()
-            router.close(0)
+            # the serve thread owns the socket until its recv times out:
+            # closing it under a blocked recv aborts inside libzmq
             th.join(timeout=10)
+            assert not th.is_alive()
+            router.close(0)
 
 
 class TestMalformedFrames:

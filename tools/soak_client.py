@@ -5,16 +5,13 @@ SOAK-OK or the failure list. Pair with:
   python apps/coherent_server.py -n 4 -b 2048 --blocks 200000 \
       --scan-depth 8 --max-channels 6 -A "tcp://*:6555" \
       --ctrl-address "tcp://*:6556" --debug-address "tcp://*:6557"
-(round-4 result: 55,665 frames @ 79.5 f/s, zero errors — docs/PERF.md)
 
 CHAOS MODE: run the server with --drop-rate to inject per-channel capture
 drops. Alignment-blip "errors" are then EXPECTED (a dropped block publishes
 stale samples — the same physics as the reference's stale-buffer failure,
 but detected/reported here); the invariants that must hold under chaos are
 (a) the server stays up, (b) gseq stays contiguous (no gseq/timeout
-entries in the error list), (c) sync repeatedly re-locks. Round-4 chaos
-run at 5% drops/channel: 29,121 frames @ 72.7 f/s, 5,813 in-pipeline gap
-detections, zero stream discontinuities, 50/72 checks fully aligned."""
+entries in the error list), (c) sync repeatedly re-locks."""
 import sys
 import time
 
